@@ -3,9 +3,9 @@
 # Stage 1 builds the wheel and pre-compiles the native C++ kernels;
 # stage 2 is a slim runtime with only the installed package.
 #
-# The TPU backend is provided by the host environment (libtpu via the
-# jax[tpu] extra); the CPU-only image below is self-contained and runs
-# the full CLI with the host engine.
+# The image installs CPU-only JAX and runs the full CLI with the host
+# engine.  For the GPU device engine install JAX's CUDA plugin instead
+# (`pip install "jax[cuda12]"`) on a machine with an NVIDIA driver.
 
 FROM python:3.12-slim AS builder
 RUN apt-get update && apt-get install -y --no-install-recommends \

@@ -27,7 +27,8 @@ else
     "$PY" -m pip install "git+$REPO_URL"
 fi
 
-# JAX backend: CPU by default; on TPU VMs install the TPU extra
+# JAX backend: CPU by default; on an NVIDIA GPU machine install
+# "jax[cuda12]" instead to enable the device engine
 if ! "$PY" -c "import jax" 2>/dev/null; then
     "$PY" -m pip install jax
 fi

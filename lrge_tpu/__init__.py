@@ -1,9 +1,9 @@
-"""lrge_tpu — TPU-native long-read overlap engine and genome-size estimator.
+"""lrge_tpu — accelerator-native long-read overlap engine and genome-size estimator.
 
 A from-scratch reimplementation of the capabilities of LRGE
 (`mbhall88/lrge`): estimate genome size from long reads by counting
 read-to-read overlaps, where the overlap engine (minimizer sketching,
-indexing, colinear chaining) is designed for TPUs (JAX/XLA/Pallas)
+indexing, colinear chaining) runs as JAX/XLA programs on a GPU
 instead of wrapping minimap2.
 
 Public API mirrors the reference library surface (`liblrge/src/lib.rs`):

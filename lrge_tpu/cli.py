@@ -62,7 +62,7 @@ def _existing_path(s: str) -> Path:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="lrge",
-        description="Genome size estimation from long read overlaps (TPU-native)",
+        description="Genome size estimation from long read overlaps (GPU-accelerated)",
     )
     ap.add_argument("input", metavar="INPUT", type=_existing_path,
                     help="Input FASTQ, FASTA, or unaligned BAM/SAM file")
@@ -102,7 +102,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Index the smaller of the Q/T sets (two-set strategy)")
     ap.add_argument("--engine", choices=["auto", "host", "device"],
                     default="auto",
-                    help="Overlap engine: device (TPU pipeline; overlaps.paf "
+                    help="Overlap engine: device (accelerator pipeline; overlaps.paf "
                          "written when -C/-D keep the temp dir), host (exact "
                          "CPU engine, always writes overlaps.paf), or auto "
                          "(default: device when an accelerator backend is "

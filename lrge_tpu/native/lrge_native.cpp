@@ -1,7 +1,7 @@
 // Native host runtime for lrge_tpu.
 //
 // The reference keeps its hot host paths in native code (minimap2 C via
-// FFI, needletail parsing); our TPU build does the same for the pieces
+// FFI, needletail parsing); this build does the same for the pieces
 // that stay on the host:
 //
 //   * FASTA/FASTQ parsing + record splitting (the reference's

@@ -60,6 +60,16 @@ def mg_log2(x: np.ndarray) -> np.ndarray:
     ).astype(np.float32)
 
 
+def gap_penalty(dd, dg, pen_gap, pen_skip) -> np.ndarray:
+    """minimap2's chain gap penalty
+    ``int(pen_gap*dd + pen_skip*dg + 0.5*log2(dd+1))`` over integer
+    arrays ``dd``/``dg``, evaluated in f32 (``pen_*`` are np.float32)
+    with every product rounded before the sum."""
+    lin = pen_gap * dd.astype(np.float32) + pen_skip * dg.astype(np.float32)
+    logp = np.where(dd >= 1, mg_log2((dd + 1).astype(np.float32)), np.float32(0.0))
+    return (lin + np.float32(0.5) * logp).astype(np.float32).astype(np.int64)
+
+
 @dataclass
 class Anchors:
     """Per-query anchor set, sorted by (rid, strand, rpos)."""
@@ -223,9 +233,7 @@ def chain_dp(anchors: Anchors, params: OverlapParams) -> tuple[np.ndarray, np.nd
             dg = np.minimum(dq, dr)
             sc = np.minimum(dg, span[j])
             pen_mask = (dd != 0) | (dg > span[j])
-            lin = pen_gap * dd.astype(np.float32) + pen_skip * dg.astype(np.float32)
-            logp = np.where(dd >= 1, mg_log2((dd + 1).astype(np.float32)), np.float32(0.0))
-            pen = (lin + np.float32(0.5) * logp).astype(np.float32).astype(np.int64)
+            pen = gap_penalty(dd, dg, pen_gap, pen_skip)
             sc = np.where(pen_mask, sc - pen, sc)
             ok = (dq > 0) & (dq <= max_gap) & (dr != 0) & (dd <= bw)
             cand = np.where(ok, sc + f[j], NEG_INF)

@@ -1,7 +1,7 @@
 """Base encoding and read batching.
 
 Reads are 2-bit encoded (A=0, C=1, G=2, T=3; anything else = 4) on the
-host and padded into fixed-shape ``[B, L]`` batches for the TPU kernels.
+host and padded into fixed-shape ``[B, L]`` batches for the device programs.
 The code table matches minimap2's ``seq_nt4_table`` so k-mer values (and
 therefore minimizer hashes) are identical.
 """
@@ -102,7 +102,7 @@ def make_batches(
     (>= ``pad_to``) and ``pad_batch`` pads the row count to a full
     ``batch_size`` (padding rows have id -1 and length 0) — together
     they bound the number of distinct compiled shapes, which matters
-    when compilation is remote/expensive.
+    when compilation is expensive.
     """
     n = len(seqs)
     if ids is None:

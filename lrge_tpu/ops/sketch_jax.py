@@ -128,8 +128,7 @@ def sketch_core(
         sel = sel & ~(held_mask & closing_tie[:, None])
 
     # final-window push: latest min over positions [n-w, n-1] of each read
-    # (one-hot select instead of scatter: 2D scatters compile
-    # pathologically on the TPU backend)
+    # (one-hot select instead of a 2D scatter)
     tail_idx = jnp.maximum(lengths[:, None] - w + jnp.arange(w)[None, :], 0)  # [B, w]
     tail_x = jnp.take_along_axis(xm, tail_idx, axis=1)
     # latest tie: scan from the right
@@ -143,11 +142,8 @@ def sketch_core(
 
     # compact to [B, M] by sorting selected positions to the front
     # (stable single-key sort; position is recovered from the sort key).
-    # A cumsum+scatter compaction was measured SLOWER on v5e (+25% on
-    # the fused program): TPU scatter costs ~18ns/element of random
-    # access while the bitonic sort streams at HBM bandwidth.  The hash
-    # fits 2k bits, so strand rides in bit 0 of the payload when 2k+1
-    # <= 32, cutting the sort to two operands.
+    # The hash fits 2k bits, so strand rides in bit 0 of the payload
+    # when 2k+1 <= 32, cutting the sort to two operands.
     M = max_minimizers
     mcount = jnp.sum(sel, axis=1).astype(jnp.int32)  # raw count (uncapped)
     ckey = jnp.where(sel, cols, cols + L)

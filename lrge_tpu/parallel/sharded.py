@@ -1,8 +1,8 @@
 """Multi-chip / multi-host scale-out: sharded target index + ring queries.
 
 The reference's only parallelism is shared-memory threads on one host
-(SURVEY.md C16).  The TPU-native scale-out design (BASELINE.json north
-star) instead shards the *work*, not the memory:
+(SURVEY.md C16).  The device scale-out design instead shards the
+*work*, not the memory:
 
 * mesh axes ``("data", "index")`` over a `jax.sharding.Mesh` — in the
   multi-host configuration ``data`` spans hosts and ``index`` spans the
@@ -19,7 +19,7 @@ star) instead shards the *work*, not the memory:
   back home after ``n_data`` hops.  Ring traffic is the query
   minimizer planes + accumulators (small), never the index (large);
 * per-device unique-target counts are disjoint by construction, so the
-  final merge is one ``psum`` over the ``index`` axis riding ICI.
+  final merge is one ``all_gather`` over the ``index`` axis.
 
 The occurrence cutoff (``mid_occ``) is applied to the *global* index
 before sharding, preserving exact parity with the single-chip path.
@@ -42,7 +42,6 @@ from ..ops.overlap_jax import (
     _PB_SPLIT,
     _dict_lookup,
     _expand_sort_chain,
-    _gather1,
     _pb_probe,
     _pruned_postings,
     _q_occ_drop_narrow,
@@ -324,15 +323,13 @@ def sharded_count_fn(
                     k=k, bucket_bits=bucket_bits, bucket_kmax=bucket_kmax,
                 )
             fc = jnp.maximum(found, 0)
-            # _gather1 barriers: a fused/scalarised gather here costs
-            # orders of magnitude more on TPU (see overlap_jax._gather1)
             if packed_dict_bits:
-                lo_occ = _gather1(dict0, fc)
+                lo_occ = dict0[fc]
                 lo = lo_occ >> packed_dict_bits
                 occ = (lo_occ & ((1 << packed_dict_bits) - 1)).astype(jnp.int32)
             else:
-                lo = _gather1(dict0, fc)
-                occ = (_gather1(dict1, fc) - lo).astype(jnp.int32)
+                lo = dict0[fc]
+                occ = (dict1[fc] - lo).astype(jnp.int32)
             occ = jnp.where(ckeep & (found >= 0) & (occ <= mid), occ, 0)
             c, a, r, pr = _expand_sort_chain(
                 lo, occ, cmps, cql, cqd, cqs,
@@ -341,8 +338,7 @@ def sharded_count_fn(
                 num_anchors=num_anchors, window=window,
                 no_dual=no_dual, no_diag=no_diag,
                 max_chain_skip=max_chain_skip,
-                packed_pos=True, use_pallas=False, pallas_block=8,
-                pallas_interpret=False, with_spans=wide, min_cnt=min_cnt,
+                packed_pos=True, with_spans=wide, min_cnt=min_cnt,
                 want_pairs=want_pairs, packed_rid_bits=packed_rid_bits,
                 rank_postings=True, dp_chunk=dp_chunk,
             )
@@ -357,9 +353,8 @@ def sharded_count_fn(
                 # ENTIRE riding state travels as ONE ppermute of a
                 # concatenated int32 plane — a per-array tree.map
                 # issued ~11 collectives per hop, and each collective
-                # carries a fixed launch latency (µs on ICI, ms on the
-                # gloo virtual-device backend; the payload itself is
-                # tiny either way)
+                # carries a fixed launch latency (the payload itself is
+                # tiny)
                 perm = [(i, (i + 1) % n_data) for i in range(n_data)]
                 parts = [
                     c0, c1, cmps, cql[:, None], cqd[:, None], cqs[:, None],
@@ -404,7 +399,7 @@ def sharded_count_fn(
             ) if n_index > 1 else pairs
             return counts, na, mr, allp
 
-        # ---- disjoint target shards: merge over ICI ----
+        # ---- disjoint target shards: merge over the index axis ----
         # ONE all_gather of the concatenated per-shard results, reduced
         # locally (sum for counts, max for the exactness flags) — the
         # psum + 2 pmax + all_gather it replaces cost 4 collective

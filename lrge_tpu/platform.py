@@ -9,7 +9,7 @@ The reference selects a minimap2 preset from the platform
   `liblrge/src/minimap2/preset.rs:24-25`)
 
 Instead of shelling into a C library, our engine is parameterised by
-:class:`OverlapParams`, the TPU engine's equivalent of minimap2's
+:class:`OverlapParams`, the engine's equivalent of minimap2's
 ``mm_idxopt_t`` + ``mm_mapopt_t`` pair.  Only the options actually
 exercised by the reference's presets are modelled.
 """
@@ -45,7 +45,7 @@ class Platform(enum.Enum):
 
 @dataclass(frozen=True)
 class OverlapParams:
-    """Parameters of the TPU overlap engine.
+    """Parameters of the overlap engine.
 
     Field semantics follow minimap2 2.30's option structs because the
     reference's numbers (overlap counts, and therefore the final genome
@@ -91,7 +91,7 @@ class OverlapParams:
     ava: bool = True  # MM_F_AVA: keep all chains (no primary/secondary
     # subsetting), matching minimap2's read-overlap mode
 
-    # ---- engine shape knobs (TPU-specific; no reference analogue) ----
+    # ---- engine shape knobs (device-specific; no reference analogue) ----
     max_anchors: int = 4096  # static per-query anchor capacity
     chain_window: int = 64  # static DP predecessor window
 

@@ -196,7 +196,7 @@ class TwoSetStrategy(Estimate):
 
         Queries are mapped on a forked worker pool when ``threads > 1``
         (the reference's rayon pool analogue, `twoset.rs:252-270`).
-        With ``engine="device"`` the TPU counting pipeline is used and
+        With ``engine="device"`` the accelerator counting pipeline is used and
         the PAF side-output is skipped (counts and estimates are exact;
         use the default host engine when overlaps.paf is needed).
         """
@@ -547,7 +547,7 @@ class TwoSetBuilder:
         return self
 
     def engine(self, engine: str) -> "TwoSetBuilder":
-        """"host" (default; writes overlaps.paf) or "device" (TPU
+        """"host" (default; writes overlaps.paf) or "device" (accelerator
         counting pipeline; PAF side-output only with device_paf)."""
         self._kw["engine"] = engine
         return self

@@ -57,6 +57,27 @@ class TestDeviceVsHost:
             assert res.counts[i] == hc, f"query {i}: device {res.counts[i]} host {hc}"
             assert bool(res.had_mapping[i]) == bool(hh)
 
+    @pytest.mark.parametrize("dp_chunk", [1, 8])
+    @pytest.mark.parametrize("window", [32, 64])
+    def test_dp_chunk_and_window_counts_match(
+        self, corpus, monkeypatch, dp_chunk, window
+    ):
+        # dp_chunk=8 is the GPU default; the unrolled DP must count
+        # exactly what the host does at both production window widths
+        targets, tnames, queries, qnames = corpus
+        monkeypatch.setenv("LRGE_DP_CHUNK", str(dp_chunk))
+        monkeypatch.setenv("LRGE_HOST_SHARE", "0")
+        index = build_index(targets, tnames, preset_for(Platform.NANOPORE, dual=True))
+        host = OverlapEngine(index)
+        dev = DeviceOverlapEngine(index, batch_size=16, window=window)
+        assert dev.dp_chunk == dp_chunk
+        res = dev.count_batch(qnames, queries)
+        assert res.fallback_rows < len(queries)
+        for i, (nm, sq) in enumerate(zip(qnames, queries)):
+            hc, hh = host.count_overlaps(nm, sq)
+            assert res.counts[i] == hc, f"query {i}: device {res.counts[i]} host {hc}"
+            assert bool(res.had_mapping[i]) == bool(hh)
+
     def test_ava_counts_match(self, corpus):
         targets, tnames, _, _ = corpus
         params = preset_for(Platform.NANOPORE, dual=False)  # no_dual set
@@ -699,7 +720,7 @@ class TestResolveEngine:
         class FakeJax:
             @staticmethod
             def default_backend():
-                return "tpu"
+                return "gpu"
 
         import sys
 

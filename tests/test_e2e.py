@@ -149,7 +149,7 @@ class TestAva:
 class TestDeviceEngineStrategies:
     @pytest.fixture(autouse=True)
     def _small_device_programs(self, monkeypatch):
-        # On the 8-virtual-CPU mesh the default (TPU-sized) program
+        # On the 8-virtual-CPU mesh the default (GPU-sized) program
         # shapes make the sharded warmup step minutes-long and can
         # outlive the collective rendezvous timeout; the integration
         # semantics are shape-independent (same knobs as
